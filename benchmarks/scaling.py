@@ -6,9 +6,9 @@ the embarrassingly-parallel fused scan and the all-to-all shuffle
 GROUP BY — over growing mesh sizes and reports per-device throughput
 and efficiency relative to the single-device run.
 
-On this development host only virtual CPU devices are available
-(`python benchmarks/scaling.py --cpu 8`); on a pod slice run it
-unmodified per host after ``parallel.multihost.initialize``.
+Rehearse on virtual CPU devices (`python benchmarks/scaling.py --cpu 8`);
+on a multi-GPU host run it unmodified (all local cards), and across
+hosts per host after ``parallel.multihost.initialize``.
 """
 
 from __future__ import annotations
@@ -97,10 +97,10 @@ def main() -> None:
 
     from warpdb_tpu.utils.metrics import timed_query, last as last_metric
 
-    # v5e ICI: ~45 GB/s per direction per link, 2 links on a 1-D ring
-    # slice — the all_to_all model bandwidth for extrapolating the
-    # virtual-CPU phase walls to real hardware (docs/DESIGN.md §6).
-    ICI_GBPS = 90.0
+    # H100 NVLink: 900 GB/s to the other cards of the host, 450 GB/s
+    # each way (NVIDIA data sheet, not a measurement) — the all_to_all
+    # model bandwidth for the analytic collective bytes (DESIGN.md §6).
+    NVLINK_GBPS = 450.0
 
     def measured_collectives(fn):
         """Run fn under the metrics trace; returns (wall_s, [(op, bytes)])."""
@@ -137,15 +137,14 @@ def main() -> None:
         )
 
         def collective_model(cs):
-            """Per-phase collective bytes + the ICI time they imply on
-            real hardware (the extrapolatable part of the ≥80% 1→N
-            scaling target — virtual-CPU walls measure host memcpy, not
-            ICI)."""
+            """Per-phase collective bytes + the interconnect time they
+            imply at the data-sheet NVLink rate (virtual-CPU walls
+            measure host memcpy, not the interconnect)."""
             total = sum(b for _op, b in cs)
             return {
                 "per_collective_bytes": [[op, b] for op, b in cs],
                 "bytes_per_device": total,
-                "ici_model_ms": round(total / (ICI_GBPS * 1e9) * 1e3, 4),
+                "nvlink_model_ms": round(total / (NVLINK_GBPS * 1e9) * 1e3, 4),
             }
 
         scan_rps = n / t_scan
@@ -158,7 +157,7 @@ def main() -> None:
             "per_device": round(scan_rps / s),
             "efficiency": round(scan_rps / (base_scan * s), 3),
             "wall_ms": round(t_scan * 1e3, 3),
-            "collectives": {"bytes_per_device": 0, "ici_model_ms": 0.0},
+            "collectives": {"bytes_per_device": 0, "nvlink_model_ms": 0.0},
         }
         report["shuffle_group"][s] = {
             "rows_per_s": round(group_rps),
@@ -178,9 +177,9 @@ def main() -> None:
     if xcheck is not None:
         # Measured-vs-modeled wire bytes (VERDICT r4 #8): the pure
         # all_to_all ratio validates note_collective's analytic counts
-        # (≈1.5× = gloo framing/algorithm, absent on real ICI); the
+        # (≈1.5× = gloo framing/algorithm, absent on NVLink); the
         # full-pipeline ratio additionally carries the loopback-emulated
-        # replicated result fetch, which on a pod stays on device.
+        # replicated result fetch, which on GPUs stays on device.
         report["collective_xcheck"] = xcheck
     print(json.dumps(report, indent=2))
 

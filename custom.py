@@ -1,6 +1,6 @@
 """User-defined functions for warpdb_tpu queries.
 
-TPU-native analogue of the reference's ``custom.cu`` (README.md:99-118):
+JAX analogue of the reference's ``custom.cu`` (README.md:99-118):
 drop JAX-traceable functions here and call them from query expressions,
 e.g. ``warpdb_tpu "discount(price, 0.9)"``.  Functions receive float32
 arrays (or scalars) and must return an array broadcastable to the row

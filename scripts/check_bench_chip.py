@@ -1,22 +1,19 @@
 """Chip-side bench gate (`make check-chip`, VERDICT r4 #1c).
 
-Round 4 shipped a bench that was green on the CPU smoke
-(`scripts/check_gate.py` forces the CPU backend) but crashed on the real
-TPU — the roofline guard was chip-only, so `make check` could not see
-the failure and the round snapshot went out with NO perf record.
+`scripts/check_gate.py` runs the bench as a CPU rehearsal, which has no
+roofline check, so it cannot see failures that exist only on the card.
 
-This gate runs `python bench.py` against the REAL chip and fails when:
+This gate runs `python bench.py` on the attached GPU and fails when:
   * the process exits nonzero,
   * the JSON line is missing or unparsable,
   * any ``*_error`` key is present,
   * ``roofline_violations`` is non-empty (a kernel measurement implied
-    more HBM bandwidth than the chip physically has — a leak, not a
-    result).
+    more HBM bandwidth than the card's data-sheet peak, looked up by
+    ``device_kind`` in ``warpdb_tpu.utils.metrics.PEAK_HBM_BYTES_PER_S``
+    — a leak, not a result; bench.py itself refuses a device that has
+    no peak there).
 
-It is a precondition for the end-of-round snapshot, same rule as
-VERDICT r3 #9 ("never snapshot red") extended to the environment the
-CPU gate cannot see.  On success the validated JSON is written to
-``/tmp/bench_chip_gate.json`` for inspection.
+On success the validated JSON line is printed.
 """
 
 import json
@@ -44,7 +41,6 @@ def main() -> int:
         print(proc.stdout[-4000:])
         print(f"check_bench_chip: FAIL — no JSON line ({e})")
         return 1
-    pathlib.Path("/tmp/bench_chip_gate.json").write_text(json.dumps(out))
     errors = {k: v for k, v in out.items() if k.endswith("_error")}
     if errors:
         print(f"check_bench_chip: FAIL — bench errors: {errors}")
@@ -55,10 +51,9 @@ def main() -> int:
             f"{out['roofline_violations']}"
         )
         return 1
-    import jax  # after the run: report which backend the bench saw
-
+    print(json.dumps(out))
     print(
-        f"check_bench_chip: OK — backend={jax.default_backend()} "
+        f"check_bench_chip: OK — device={out.get('device')} "
         f"value={out.get('value')} e2e={out.get('e2e_value')} "
         f"tpch_geomean={out.get('tpch_geomean_rows_per_s')}"
     )

@@ -4,7 +4,7 @@
 ``utils.metrics.note_collective`` records, per distributed kernel
 launch, the ANALYTIC per-device byte volume of each collective (static
 shapes make it exact at the model's level of abstraction).  DESIGN.md §6
-extrapolates ICI walls from those numbers — this script puts real wire
+extrapolates interconnect walls from those numbers — this script puts real wire
 bytes next to them: it runs the 2-process loopback ``jax.distributed``
 path (2 procs × 2 virtual CPU devices) and measures the loopback
 interface's RX byte counter across K repetitions of the distributed
@@ -92,7 +92,7 @@ def worker(proc_id: int, nprocs: int, port: str, rows: int, reps: int) -> int:
     # Pure-collective calibration: ONE bare all_to_all of exactly known
     # per-device volume, so transport overhead (gloo algorithm + gRPC
     # framing) separates from the pipeline's other wire costs (the
-    # replicated result fetch, which on a real pod stays on device).
+    # replicated result fetch, which on GPUs stays on device).
     import jax.numpy as jnp
     from jax import lax, shard_map
     from jax.sharding import NamedSharding

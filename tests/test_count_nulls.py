@@ -9,7 +9,7 @@ Three properties pinned here:
    i32 row counts minus a summed IS-NULL indicator instead of summing a
    not-null indicator in f32 (which saturates at 16,777,216).
 3. The 0/1 indicator has a finite static range, so grouped COUNT(expr)
-   queries keep the stats-gated MXU one-hot group path.
+   queries keep the stats-gated one-hot matmul group path.
 
 Reference context: the reference's COUNT is a thrust::count_if over all
 rows with no NULL concept at all (src/jit.cpp) — NULL skipping is an
@@ -103,7 +103,7 @@ def test_count_grouped_left_join_fill():
 
 def test_notnull_indicator_has_finite_range():
     """expr_range knows the indicator is in [0,1], keeping grouped
-    COUNT(expr) on the stats-gated MXU one-hot path (ADVICE r4 #3)."""
+    COUNT(expr) on the stats-gated one-hot matmul path (ADVICE r4 #3)."""
     from warpdb_tpu.engine.optimizer import expr_range
     from warpdb_tpu.frontend.ast import NotNull, Variable
 

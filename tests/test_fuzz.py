@@ -536,7 +536,7 @@ def _diff_query(rng):
 
 @pytest.mark.parametrize("seed", range(8))
 def test_fuzz_differential_fast_vs_slow_paths(seed):
-    """Every stats-gated fast path (dense/midrange/MXU GROUP BY, dense
+    """Every stats-gated fast path (dense/midrange/one-hot GROUP BY, dense
     phase-1 joins, eager join aggregation) must be result-equivalent to
     the general machinery (sorted segmented aggregation, full sort-merge
     join).  Each random query runs twice — fast paths enabled vs all

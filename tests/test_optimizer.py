@@ -2,6 +2,8 @@
 the reference's intended-but-stubbed behaviors (optimizer.cpp:13-47)
 made real and verified."""
 
+import pathlib
+
 import numpy as np
 import pytest
 
@@ -137,25 +139,36 @@ def test_explain_does_not_execute(data_dir):
     assert cache_stats()["misses"] == before  # no kernel was built
 
 
-def test_persistent_compilation_cache_config(tmp_path, monkeypatch):
-    # WARPDB_COMPILATION_CACHE_DIR wires jax's persistent executable
-    # cache (the durable analogue of the kernel cache; the reference
-    # recompiled everything per call).
+@pytest.mark.parametrize("env_set", [True, False])
+def test_persistent_compilation_cache_config(tmp_path, monkeypatch, env_set):
+    # JAX's persistent executable cache (the durable analogue of the
+    # kernel cache; the reference recompiled everything per call):
+    # JAX_COMPILATION_CACHE_DIR wins untouched when set, otherwise the
+    # checkout's .jax_cache.
     import jax
 
-    import warpdb_tpu.config as cfg
+    from warpdb_tpu.config import configure_compilation_cache
 
-    monkeypatch.setenv("WARPDB_COMPILATION_CACHE_DIR", str(tmp_path))
-    cfg.set_config(None)  # force re-read from env
+    before = jax.config.jax_compilation_cache_dir
+    min_secs = jax.config.jax_persistent_cache_min_compile_time_secs
+    if env_set:
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+    else:
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
     try:
-        c = cfg.get_config()
-        assert c.compilation_cache_dir == str(tmp_path)
-        assert jax.config.jax_compilation_cache_dir == str(tmp_path)
+        path = configure_compilation_cache()
+        if env_set:
+            assert path == str(tmp_path)
+            assert jax.config.jax_compilation_cache_dir == before
+        else:
+            repo = pathlib.Path(__file__).resolve().parent.parent
+            assert path == str(repo / ".jax_cache")
+            assert jax.config.jax_compilation_cache_dir == path
     finally:
-        jax.config.update("jax_compilation_cache_dir", None)
-        monkeypatch.delenv("WARPDB_COMPILATION_CACHE_DIR")
-        cfg.set_config(None)
-        cfg.get_config()
+        jax.config.update("jax_compilation_cache_dir", before)
+        jax.config.update(
+            "jax_persistent_cache_min_compile_time_secs", min_secs
+        )
 
 
 def test_env_overrides_int_field(monkeypatch):

@@ -808,6 +808,33 @@ def test_mesh_sql_join_routes_distributed(mesh):
     np.testing.assert_allclose(got, want, rtol=1e-3)
 
 
+def test_mesh_sql_join_payload_bits_exact(mesh):
+    """The shuffle join's device repack moves payload bits unchanged:
+    -0.0, NaN, ±inf and full-range int32 values come back bit-exact."""
+    rng = np.random.default_rng(33)
+    n = 4000
+    a = rng.integers(0, 16, n).astype(np.float32)
+    rid = np.arange(n, dtype=np.float32)
+    db = WarpDB(HostTable.from_dict({"a": a, "rid": rid}))
+    db.distribute(mesh)
+    w = np.array([-0.0, np.nan, -np.inf, np.inf, 0.0, -1.5e-45, 3.4e38,
+                  -2.0] * 2, np.float32)
+    code = np.array([-(2**31), 2**31 - 1, -1, 0, 1, 12345, -7, 99] * 2,
+                    np.int32)
+    db.register_table("dim", HostTable.from_dict(
+        {"a2": np.arange(16, dtype=np.float32), "w": w, "code": code}))
+    out = db.query_sql_table(
+        "SELECT rid, dim.w AS w, dim.code AS code FROM t "
+        "JOIN dim ON a = dim.a2")
+    order = np.argsort(np.asarray(out["rid"]))
+    np.testing.assert_array_equal(np.asarray(out["rid"])[order], rid)
+    idx = a.astype(int)
+    got_w = np.asarray(out["w"], np.float32)[order]
+    np.testing.assert_array_equal(got_w.view(np.uint32), w[idx].view(np.uint32))
+    np.testing.assert_array_equal(
+        np.asarray(out["code"]).astype(np.int64)[order], code[idx])
+
+
 def test_mesh_sql_join_string_keys(mesh):
     """String-key equi-join across the mesh: right-side codes translate
     into the left vocabulary before hashing."""

@@ -1,8 +1,8 @@
 """Device-fused window expressions (VERDICT r4 #5).
 
 A select item mixing window functions with row arithmetic used to ship
-one hidden O(N) column per window AND per referenced column through the
-~10 MB/s relay, combining host-side.  The fused path evaluates the
+one hidden O(N) column per window AND per referenced column over the
+host↔device link, combining host-side.  The fused path evaluates the
 windows and the combining arithmetic in ONE program and ships exactly
 one column per select item (WHERE-compacted on device, O(match)),
 asserted here via utils/metrics.note_transfer accounting.

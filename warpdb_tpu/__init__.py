@@ -1,4 +1,4 @@
-"""warpdb_tpu — a TPU-native vectorized SQL query-execution engine.
+"""warpdb_tpu — a vectorized SQL query-execution engine on JAX/XLA.
 
 A from-scratch JAX/XLA/Pallas re-design of the capability set of
 seanwevans/WarpDB (a CUDA NVRTC-JIT query engine):

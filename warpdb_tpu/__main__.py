@@ -16,7 +16,7 @@ import time
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="warpdb_tpu",
-        description="TPU-native vectorized SQL query engine",
+        description="Vectorized SQL query engine on JAX/XLA",
     )
     parser.add_argument(
         "query", nargs="?", default=None,
@@ -45,27 +45,9 @@ def main(argv=None) -> int:
                              "(POST /query, GET /healthz, /schema)")
     args = parser.parse_args(argv)
 
-    # Persistent XLA compilation cache: first compile of a kernel on a
-    # remote TPU costs tens of seconds; cached reloads are ~0.3 s.  The
-    # engine config's WARPDB_COMPILATION_CACHE_DIR wins if set.
-    from .config import get_config
+    from .config import configure_compilation_cache
 
-    if not get_config().compilation_cache_dir:
-        import os
-
-        cache_dir = os.path.join(
-            os.path.expanduser("~"), ".cache", "warpdb_tpu", "jax"
-        )
-        try:
-            os.makedirs(cache_dir, exist_ok=True)
-            import jax
-
-            jax.config.update("jax_compilation_cache_dir", cache_dir)
-            jax.config.update(
-                "jax_persistent_cache_min_compile_time_secs", 0.5
-            )
-        except Exception:
-            pass  # cache is an optimisation, never a failure
+    configure_compilation_cache()
 
     from . import WarpDB
 

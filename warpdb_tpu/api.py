@@ -118,7 +118,7 @@ class Catalog(dict):
 
 
 class WarpDB:
-    """A columnar table loaded onto TPU, queryable with expressions or SQL.
+    """A columnar table loaded onto the device, queryable with expressions or SQL.
 
     The primary (constructor) table is registered under its own name
     (the file stem, or "table" for in-memory sources) and under the
@@ -181,7 +181,7 @@ class WarpDB:
 
     def distribute(self, mesh=None) -> "WarpDB":
         """Re-lay the table row-sharded over ``mesh`` (all local devices by
-        default); subsequent queries execute distributed.  The TPU-native
+        default); subsequent queries execute distributed.  The mesh
         successor of the reference's per-device upload loop
         (multi_gpu_utils.cpp:27-60)."""
         from .parallel.mesh import data_mesh

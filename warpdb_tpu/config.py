@@ -12,7 +12,7 @@ import dataclasses
 import os
 from typing import Optional
 
-__all__ = ["EngineConfig", "get_config", "set_config", "enable_persistent_compilation_cache"]
+__all__ = ["EngineConfig", "get_config", "set_config", "configure_compilation_cache"]
 
 
 @dataclasses.dataclass
@@ -22,32 +22,32 @@ class EngineConfig:
     # Rows per chunk for streaming execution when the caller passes no
     # explicit value (reference default 1e6, warpdb.hpp:35).
     rows_per_chunk: int = 1_000_000
-    # Dense GROUP BY fast path: max key-range slots.  Crossover vs the
-    # sort path measured on v5e at N=2^24: dense is ~15x faster at 1K
-    # slots, ~4x at 4K, and loses beyond ~8K.
+    # The GROUP BY tier crossovers below are untuned on the current
+    # device (ROADMAP Design 4): their values were set on earlier
+    # hardware and wait for the benchmark to re-derive them.
+    # Dense GROUP BY fast path: up to this many key-range slots the
+    # whole slot table ships to the host in one dispatch; wider ranges
+    # take the mid-range tier, which compacts occupied slots on device.
     dense_group_max_slots: int = 4096
-    # Mid-range sort-free GROUP BY (scatter/MXU into a dense slot
-    # table): scatter cost is per-UPDATE (row), not per-slot, so the
-    # slot count only pays the occupancy-compaction sort — up to
-    # ``base_slots`` the slot table wins regardless of input size
-    # (measured at 2^20 slots on v5e: 93 vs 158 ms at 4M rows AND 39
-    # vs 45 ms at 368K rows).  Beyond that the compaction sort starts
-    # to matter, so the slot table runs only when the input has at
-    # least as many rows as slots (measured at 2^22 slots: 16M rows
-    # 407 vs 671 ms for the sort path; 1.5M rows 92 vs 83 — sort
-    # wins).  ``max_slots`` is the hard cap either way.
+    # Mid-range sort-free GROUP BY (scatter/one-hot matmul into a dense
+    # slot table): scatter cost is per-UPDATE (row), not per-slot, so
+    # the slot count only pays the occupancy-compaction sort — up to
+    # ``base_slots`` the slot table runs regardless of input size.
+    # Beyond that the compaction sort starts to matter, so the slot
+    # table runs only when the input has at least as many rows as
+    # slots.  ``max_slots`` is the hard cap either way.
     midrange_group_base_slots: int = 1 << 20
     midrange_group_max_slots: int = 1 << 23
-    # SUM/COUNT-only mid-range queries ride the MXU one-hot matmul up
-    # to this many slots (FLOPs grow linearly with the slot count).
+    # SUM/COUNT-only mid-range queries ride the one-hot matmul up to
+    # this many slots (FLOPs grow linearly with the slot count).
     mxu_group_max_slots: int = 1 << 16
     # Single-key joins whose build side has at most this many rows use
-    # the sort-free dense phase 1 (virtual (N, K) VPU sweep instead of
+    # the sort-free dense phase 1 (virtual (N, K) compare sweep instead of
     # two full-width probe∪build sorts).
     join_dense_build_max: int = 256
     # Comm/compute overlap in the distributed row shuffle: split the
     # all-to-all into two half-bucket exchanges and aggregate the first
-    # half while the second is in flight on the ICI (DESIGN.md §6).
+    # half while the second is in flight (DESIGN.md §6).
     shuffle_overlap: bool = False
     # Materialized-join LRU per probe table (device tables are
     # immutable, so a (build table, condition, columns) join result
@@ -78,8 +78,6 @@ class EngineConfig:
     f64_policy: str = "strict"
     # UDF module discovered in the working directory (custom.cu analogue).
     udf_module: str = "custom.py"
-    # Directory for jax persistent compilation cache ('' = disabled).
-    compilation_cache_dir: str = ""
 
     @classmethod
     def from_env(cls) -> "EngineConfig":
@@ -112,8 +110,6 @@ def get_config() -> EngineConfig:
     global _config
     if _config is None:
         _config = EngineConfig.from_env()
-        if _config.compilation_cache_dir:
-            enable_persistent_compilation_cache(_config.compilation_cache_dir)
     return _config
 
 
@@ -122,12 +118,28 @@ def set_config(cfg: EngineConfig) -> None:
     _config = cfg
 
 
-def enable_persistent_compilation_cache(path: str) -> None:
+CHECKOUT_CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache"
+)
+
+
+def configure_compilation_cache() -> str:
     """Persist XLA executables across processes — the durable analogue of
     the reference's missing kernel cache (its biggest perf flaw was
     NVRTC recompile per call, jit.cpp:98-157; ours caches in-process by
-    plan and, with this, on disk across restarts)."""
+    plan and, with this, on disk across restarts).
+
+    Where ``JAX_COMPILATION_CACHE_DIR`` is set, JAX reads it itself and
+    this leaves the directory alone; otherwise the cache lives in the
+    checkout's ``.jax_cache``.  The path is fixed (part of the cache
+    key), never built from a temporary name, process id or time.
+    Every entry point calls this; importing the library does not.
+    Returns the directory in use."""
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", path)
+    path = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if not path:
+        path = CHECKOUT_CACHE_DIR
+        jax.config.update("jax_compilation_cache_dir", path)
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    return path

@@ -3,7 +3,7 @@
 ``warpdb_tpu.dbapi.connect(source)`` returns a :class:`Connection`
 wrapping a :class:`~warpdb_tpu.api.WarpDB` engine, so any DB-API
 consumer (ORMs, notebook magics, ``pandas.read_sql``) can query the
-TPU engine without learning its native API.  Extension over the
+engine without learning its native API.  Extension over the
 reference, whose only binding surface was the ad-hoc pywarpdb module
 (pywarpdb.cpp:18-60).
 

@@ -9,7 +9,7 @@ compiler:
 * walks the AST once, building a Python closure over jnp ops;
 * lets ``jax.jit`` trace it into a single fused XLA kernel (filter and
   projection fuse exactly like the reference's generated ``user_kernel``,
-  jit.cpp:81-83, but XLA also vectorises and lays it out for the VPU);
+  jit.cpp:81-83, but XLA also vectorises it for the device);
 * memoises the jitted executable keyed on
   (canonical expression, schema signature, padded length, UDF registry
   version) — recompilation happens once per plan shape, not per query.
@@ -368,7 +368,7 @@ def build_evaluator(node: Node) -> Callable[[dict], jax.Array]:
             if k == 0:
                 return jnp.zeros(x.shape, jnp.bool_)
             # Virtual (N, K) compare sweep in ≤1024-lane chunks — the
-            # tiny-table VPU trade (docs/DESIGN.md): per-row gathers or
+            # tiny-table trade (docs/DESIGN.md): per-row gathers or
             # sorts lose badly to K broadcast-compare lanes at the set
             # sizes an IN (SELECT …) produces.
             hit = jnp.zeros(x.shape, jnp.bool_)

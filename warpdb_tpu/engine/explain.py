@@ -20,6 +20,7 @@ from ..frontend.ast import (
     unalias,
     walk,
 )
+from ..ops.aggregate import SWEEP_MAX_SLOTS
 from ..storage.table import DeviceTable
 
 __all__ = ["explain_query", "explain_expression"]
@@ -201,7 +202,7 @@ def explain_query(
         )
         lines.append(
             f"    strategy: {len(query.group_by.sets)} grouped passes "
-            "(one per set) through the dense/MXU/sort ladder; rolled-up "
+            "(one per set) through the dense/midrange/sort ladder; rolled-up "
             "keys read NULL; O(groups) host-side concat + order/limit"
         )
     elif query.group_by is not None:
@@ -253,15 +254,17 @@ def explain_query(
             if slots is not None and slots <= cfg.dense_group_max_slots:
                 lines.append(
                     f"    strategy: DENSE integer-key aggregation "
-                    f"({slots} slots, stats-bounded{packed}; no sort, no "
-                    "scatter — fused VPU compare-reduce)"
+                    f"({slots} slots, stats-bounded{packed}; no sort — "
+                    + ("compare sweep" if slots <= SWEEP_MAX_SLOTS
+                       else "scatter")
+                    + " into a slot table)"
                 )
             elif slots is not None and (
                 slots <= cfg.midrange_group_base_slots
                 or slots <= current.num_rows
             ):
                 engine = (
-                    "MXU one-hot histogram"
+                    "one-hot matmul histogram"
                     if slots <= cfg.mxu_group_max_slots
                     else "scatter slot table"
                 )

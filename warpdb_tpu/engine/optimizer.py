@@ -95,7 +95,7 @@ def expr_range(node: Node, stats: dict) -> Optional[_Interval]:
     if isinstance(node, NotNull):
         # NULL indicator (COUNT(expr) lowering) is 0/1 by construction;
         # without this branch grouped COUNT(expr) queries fell off the
-        # stats-gated MXU one-hot group path (ADVICE r4).
+        # stats-gated one-hot matmul group path (ADVICE r4).
         return (0.0, 1.0)
     if isinstance(node, CodeMap):
         # The LUT's own extent, valid only when stats prove the source

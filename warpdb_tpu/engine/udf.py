@@ -1,6 +1,6 @@
 """User-defined function registry.
 
-TPU-native replacement for the reference's ``custom.cu`` convention
+JAX replacement for the reference's ``custom.cu`` convention
 (jit.cpp:66-73: the file is slurped from the CWD at every JIT call and
 prepended to the generated kernel source).  Here a UDF is any callable
 over JAX arrays:

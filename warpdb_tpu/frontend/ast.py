@@ -102,7 +102,7 @@ class BinaryOp(Node):
 @dataclass(frozen=True, repr=False)
 class FunctionCall(Node):
     """UDF invocation — resolved against the UDF registry at compile time
-    (the TPU-native replacement for the reference's ``custom.cu``
+    (the JAX replacement for the reference's ``custom.cu``
     convention, jit.cpp:66-73)."""
 
     name: str

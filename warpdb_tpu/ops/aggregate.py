@@ -4,7 +4,7 @@ aggregates.
 The reference's GROUP BY kernel is a **single GPU thread** doing an
 O(N·G) linear key scan (jit.cpp:179-246), hardcoded to one schema and
 supporting only SUM; HAVING/MIN/MAX/AVG/COUNT lived in a broken host
-loop (warpdb.cpp:373-437).  The TPU design is a sort-based segmented
+loop (warpdb.cpp:373-437).  The design here is a sort-based segmented
 aggregate — fully vectorized, deterministic, one fused XLA program:
 
 1. keys are made radix-sortable (``float_sort_key``), invalid rows get a
@@ -137,8 +137,8 @@ def group_scatter_stage(
 ) -> GroupResult:
     """Scatter the pre-sorted segments into capacity-sized aggregate
     tables (pairs with :func:`group_sort_stage`).  At high cardinality
-    the scatters dominate (~0.14 G updates/s on v5e), so ``need`` prunes
-    the min/max passes a SUM-only query never reads."""
+    the scatters dominate, so ``need`` prunes the min/max passes a
+    SUM-only query never reads."""
     # Invalid rows (sentinel block at the back) scatter out of range.
     seg = jnp.where(valid_s, seg, capacity)
     counts = jnp.zeros((capacity,), jnp.int32).at[seg].add(1, mode="drop")
@@ -156,7 +156,7 @@ def group_scatter_stage(
     per_value = []
     for v in vals_s:
         sums = (
-            jnp.zeros((capacity,), jnp.float32).at[seg].add(v, mode="drop")
+            slot_sums(seg, v, capacity)
             if "sum" in need
             else jnp.zeros((capacity,), jnp.float32)
         )
@@ -216,7 +216,7 @@ def group_aggregate(
     )
     per_value = []
     for v in vals_s:
-        sums = jnp.zeros((capacity,), jnp.float32).at[seg].add(v, mode="drop")
+        sums = slot_sums(seg, v, capacity)
         mins = jnp.full((capacity,), jnp.inf, jnp.float32).at[seg].min(v, mode="drop")
         maxs = jnp.full((capacity,), -jnp.inf, jnp.float32).at[seg].max(v, mode="drop")
         per_value.append(ValueAggregates(sums, mins, maxs))
@@ -238,76 +238,108 @@ def count_distinct(keys, mask: jax.Array) -> jax.Array:
     return jnp.sum(jnp.logical_and(first, valid_s).astype(jnp.int32))
 
 
-def dense_group_aggregate(
-    keys: jax.Array,
-    values_list,
-    mask: jax.Array,
-    base: int,
-    num_slots: int,
-    need: tuple = ("sum", "min", "max"),
-) -> GroupResult:
-    """Dense integer-key aggregation — the TPU fast path for GROUP BY.
+def slot_sums(seg: jax.Array, values: jax.Array, num_slots: int) -> jax.Array:
+    """Per-slot f32 sums of ``values`` at slot ``seg`` (``seg >=
+    num_slots`` drops the row), privatised: the rows split into B
+    contiguous blocks, each block scatter-adds into its own copy of the
+    table, and the B copies reduce as a tree.  One shared table would
+    take up to N/G additions per slot in sequence, and on the GPU
+    (atomics) that lost 6e-4 relative at 2^26 rows × 32 slots.  B keeps
+    the copies within 2^22 slots in all and each block ≥ 1024 rows."""
+    n = seg.shape[0]
+    b = max(1, min(1024, (1 << 22) // max(num_slots, 1), n // 1024))
+    block = jnp.arange(n, dtype=jnp.int32) // jnp.int32(-(-n // b))
+    idx = jnp.where(seg < num_slots, block * num_slots + seg, b * num_slots)
+    part = jnp.zeros((b * num_slots,), jnp.float32).at[idx].add(
+        values, mode="drop"
+    )
+    return jnp.sum(part.reshape(b, num_slots), axis=0)
 
-    When the optimizer can bound the key range from column stats
-    (base ≤ key ≤ base + num_slots - 1, integral), grouping needs no
-    sort and no scatter: group id = key - base, and every aggregate is a
-    fused compare-select-reduce over an (N, G) *virtual* matrix that XLA
-    never materialises — pure VPU streaming, O(N·G) lane-ops instead of
-    the sort path's O(N log² N) comparator stages.  Measured on v5e this
-    beats scatter-add segment-sum by ~170× and an MXU one-hot matmul
-    formulation by ~10%, so the fused reduce is the design point.
 
-    ``need`` prunes unneeded reductions (a SUM-only query skips the
-    min/max passes — each extra aggregate costs one more O(N·G) pass).
-    Counts are always produced (they size/validate the groups).
+# Up to this many slots the slot tables come from a compare sweep over
+# row chunks instead of scatters: no atomics, so reruns are
+# bit-identical, and faster where many rows share a slot (2^25 rows on
+# an H100 80GB HBM3 at 400 W: 2.094 vs 9.638 ms at 32 slots, 12.602 vs
+# 10.345 ms at 256).
+SWEEP_MAX_SLOTS = 128
+# Rows × slots one scan step compares (bounds the step's scratch:
+# XLA:GPU materialises the step's row-to-slot matrix).
+_SWEEP_STEP_ELEMS = 1 << 24
 
-    Contract matches :func:`group_aggregate`: GroupResult with slots
-    ordered by key ascending; empty slots have count 0 (the caller
-    compacts on num_groups/count>0)."""
-    values_list = tuple(values_list)
-    gid = keys.astype(jnp.int32) - jnp.int32(base)
-    valid = jnp.logical_and(mask, jnp.logical_and(gid >= 0, gid < num_slots))
 
-    slot_ids = jnp.arange(num_slots, dtype=jnp.int32)
-    eq = jnp.logical_and(gid[:, None] == slot_ids[None, :], valid[:, None])
+def _sweep_tables(seg, values_list, num_slots: int, need):
+    """Counts and per-value (sum, min, max) tables for slot ids ``seg``
+    (``seg >= num_slots`` drops the row): the rows split into chunks of
+    C rows with C·G ≤ ``_SWEEP_STEP_ELEMS``, and a scan reduces each
+    chunk's (C, G) comparison in turn."""
+    n = seg.shape[0]
+    c = 1
+    while c * 2 * num_slots <= _SWEEP_STEP_ELEMS and c * 2 <= n:
+        c *= 2
+    pad = -n % c
+    if pad:
+        seg = jnp.concatenate([seg, jnp.full((pad,), num_slots, seg.dtype)])
+        values_list = tuple(
+            jnp.concatenate([v, jnp.zeros((pad,), v.dtype)])
+            for v in values_list
+        )
+    slot_ids = jnp.arange(num_slots, dtype=seg.dtype)
+    inf = jnp.float32(jnp.inf)
 
-    counts = jnp.sum(eq, axis=0, dtype=jnp.int32)
-    per_value = []
+    def step(carry, x):
+        s, vs = x
+        eq = s[:, None] == slot_ids[None, :]
+        counts = carry[0] + jnp.sum(eq, axis=0, dtype=jnp.int32)
+        acc = []
+        for (sm, mn, mx), v in zip(carry[1], vs):
+            v2 = v[:, None]
+            if "sum" in need:
+                sm = sm + jnp.sum(jnp.where(eq, v2, 0.0), axis=0)
+            if "min" in need:
+                mn = jnp.minimum(mn, jnp.min(jnp.where(eq, v2, inf), axis=0))
+            if "max" in need:
+                mx = jnp.maximum(mx, jnp.max(jnp.where(eq, v2, -inf), axis=0))
+            acc.append((sm, mn, mx))
+        return (counts, tuple(acc)), None
+
     zeros = jnp.zeros((num_slots,), jnp.float32)
-    for v in values_list:
-        v2 = v[:, None]
-        s = (
-            jnp.sum(jnp.where(eq, v2, 0.0), axis=0)
-            if "sum" in need
-            else zeros
-        )
-        mn = (
-            jnp.min(jnp.where(eq, v2, jnp.inf), axis=0)
-            if "min" in need
-            else jnp.full((num_slots,), jnp.inf, jnp.float32)
-        )
-        mx = (
-            jnp.max(jnp.where(eq, v2, -jnp.inf), axis=0)
-            if "max" in need
-            else jnp.full((num_slots,), -jnp.inf, jnp.float32)
-        )
-        per_value.append(ValueAggregates(s, mn, mx))
+    init = (
+        jnp.zeros((num_slots,), jnp.int32),
+        tuple((zeros, zeros + inf, zeros - inf) for _ in values_list),
+    )
+    xs = (seg.reshape(-1, c), tuple(v.reshape(-1, c) for v in values_list))
+    (counts, acc), _ = lax.scan(step, init, xs)
+    return counts, tuple(ValueAggregates(*a) for a in acc)
 
-    # Integer key inputs reconstruct exactly in int32 (base + slot is
-    # in-range by the planner's int32 guard); f32 reconstruction would
-    # collide slot keys beyond 2^24.
-    if jnp.issubdtype(keys.dtype, jnp.integer):
-        keys_out = (jnp.int32(base) + slot_ids,)
-    else:
-        keys_out = (jnp.float32(base) + slot_ids.astype(jnp.float32),)
-    num_groups = jnp.sum((counts > 0).astype(jnp.int32))
-    return GroupResult(keys_out, counts, tuple(per_value), num_groups)
+
+def _scatter_tables(seg, values_list, num_slots: int, need):
+    """The same tables as :func:`_sweep_tables` by scatters: one pass
+    per reduction, sums privatised (:func:`slot_sums`)."""
+    counts = jnp.zeros((num_slots,), jnp.int32).at[seg].add(1, mode="drop")
+    inf = jnp.full((num_slots,), jnp.inf, jnp.float32)
+    zeros = jnp.zeros((num_slots,), jnp.float32)
+    per_value = []
+    for v in values_list:
+        sums = slot_sums(seg, v, num_slots) if "sum" in need else zeros
+        mins = inf.at[seg].min(v, mode="drop") if "min" in need else inf
+        maxs = (-inf).at[seg].max(v, mode="drop") if "max" in need else -inf
+        per_value.append(ValueAggregates(sums, mins, maxs))
+    return counts, tuple(per_value)
+
+
+def slot_tables(seg, values_list, num_slots: int, need):
+    """``(counts, per-value ValueAggregates)`` for rows at slot ``seg``
+    (``seg >= num_slots`` drops the row) — a compare sweep up to
+    ``SWEEP_MAX_SLOTS`` slots, scatters beyond.  Reductions not in
+    ``need`` come back as their identities."""
+    tables = _sweep_tables if num_slots <= SWEEP_MAX_SLOTS else _scatter_tables
+    return tables(seg, tuple(values_list), num_slots, need)
 
 
 def _mxu_chunk(n: int) -> int:
     """Largest power-of-two row chunk ≤ 2^15 dividing ``n`` (0 = no
     chunking).  2^15 rows keeps each one-hot operand ≤ 16 MB while the
-    contracting dimension stays deep enough to saturate the MXU."""
+    contracting dimension stays deep enough for the matmul units."""
     for c in (1 << 15, 1 << 14, 1 << 13, 1 << 12, 1 << 11, 1 << 10):
         if n % c == 0 and n > c:
             return c
@@ -315,16 +347,16 @@ def _mxu_chunk(n: int) -> int:
 
 
 def _mxu_counts_sums(gid, values_list, valid, num_slots: int, need):
-    """Histogram + per-slot sums on the MXU via a factorized one-hot
-    matmul: split ``gid`` into hi/lo digits, then
+    """Histogram + per-slot sums on the matmul units via a factorized
+    one-hot matmul: split ``gid`` into hi/lo digits, then
     ``counts2d = onehot(hi)ᵀ @ onehot(lo)`` — each (row, slot) pair
     contributes exactly where hi AND lo match, so the (GHI, GLO) result
     IS the dense histogram.  Sums ride the same contraction with the lo
     one-hot scaled by the value column.
 
-    TPU-first rationale: XLA's scatter lowering is serialized
-    (~0.14 G updates/s on v5e — DESIGN.md §2) while the MXU does this
-    contraction at matmul speed.  Counts use bf16 operands (0/1 entries
+    The tier replaces per-row scatters with one contraction (whether it
+    still pays against scatter-add is ROADMAP Design 3).  Counts use
+    bf16 operands (0/1 entries
     are exact; accumulation is f32, and the per-chunk i32 carry below
     keeps totals exact past 2^24).  Sums use f32 operands with
     ``precision=HIGHEST`` so value mantissas are not truncated to bf16.
@@ -374,7 +406,7 @@ def _mxu_counts_sums(gid, values_list, valid, num_slots: int, need):
             cnt_acc, sum_acc = carry
             cnt, sums = block(x[0], x[1], x[2])
             # i32 count carry: per-chunk counts ≤ 2^15 are exact in the
-            # MXU's f32 accumulator; integer accumulation across chunks
+            # matmul's f32 accumulator; integer accumulation across chunks
             # stays exact past f32's 2^24 integer ceiling.
             return (
                 cnt_acc + cnt,
@@ -406,49 +438,32 @@ def midrange_group_aggregate(
     use_mxu: bool = False,
 ) -> GroupResult:
     """Sort-free GROUP BY for stats-bounded integer keys whose range is
-    too wide for :func:`dense_group_aggregate`'s O(N·G) virtual-matrix
-    sweep (G beyond ~4K slots) but still materializable as a dense slot
-    table (up to ~2^20 slots).
+    materializable as a dense slot table (the dense tier, up to 4096
+    slots, and the mid-range tier, up to ~2^20 slots).  Nothing here
+    builds a whole (N, G) row-to-slot matrix: XLA:GPU materialises one
+    (128 GiB at 2^25 rows × 4096 slots).
 
     Group id = key - base; aggregates land directly in their slot —
     no O(N log² N) comparator sorts, no segment machinery.  Two engines:
 
-    * scatter (general): one ``.at[gid].op`` pass per needed reduction
-      (~0.14 G updates/s each on v5e — still ~2.5× faster than the sort
-      path's sort + 3 scatters for a SUM query at 2^25 rows);
-    * MXU (``use_mxu``, SUM/COUNT-only queries): factorized one-hot
-      matmuls (see :func:`_mxu_counts_sums`) — measured ~10× the scatter
-      engine at 2^16 slots, since the MXU contraction replaces every
-      serialized scatter.
+    * general (:func:`slot_tables`): a chunked compare sweep up to
+      ``SWEEP_MAX_SLOTS`` slots, one ``.at[gid].op`` pass per needed
+      reduction beyond;
+    * one-hot matmul (``use_mxu``, SUM/COUNT-only queries): factorized
+      one-hot matmuls (see :func:`_mxu_counts_sums`) in place of the
+      scatters.
 
-    Contract matches :func:`dense_group_aggregate`: slots ordered by key
-    ascending, empty slots count 0, keys reported as ``base + slot``
-    (f32).  Callers compact occupied slots (on device — see the
-    executor's two-phase midrange protocol)."""
+    Contract matches :func:`group_aggregate`: GroupResult with slots
+    ordered by key ascending, empty slots count 0, keys reported as
+    ``base + slot``.  Callers compact occupied slots (on device — see
+    the executor's two-phase midrange protocol)."""
     values_list = tuple(values_list)
     gid = keys.astype(jnp.int32) - jnp.int32(base)
     valid = jnp.logical_and(mask, jnp.logical_and(gid >= 0, gid < num_slots))
 
     if use_mxu:
-        counts = sums = None
-        if jax.default_backend() == "tpu":
-            from .pallas_group import pallas_group_counts_sums, supported_chunk
-
-            if supported_chunk(gid.shape[0]):
-                # Fused one-hot Pallas kernel: HBM traffic = input read
-                # (the XLA scan below round-trips every one-hot operand
-                # through HBM — ~100× amplification at 2^16 slots).
-                glo = 128 if num_slots <= (1 << 14) else 256
-                g = jnp.where(
-                    valid, gid, jnp.int32(-(-num_slots // glo) * glo)
-                )
-                want_sums = "sum" in need and len(values_list) > 0
-                counts, sums = pallas_group_counts_sums(
-                    g, tuple(values_list) if want_sums else (), num_slots
-                )
-        if counts is None:
-            counts, sums = _mxu_counts_sums(gid, values_list, valid,
-                                            num_slots, need)
+        counts, sums = _mxu_counts_sums(gid, values_list, valid,
+                                        num_slots, need)
         inf = jnp.full((num_slots,), jnp.inf, jnp.float32)
         zeros = jnp.zeros((num_slots,), jnp.float32)
         per_value = tuple(
@@ -459,22 +474,7 @@ def midrange_group_aggregate(
         )
     else:
         seg = jnp.where(valid, gid, num_slots)
-        counts = (
-            jnp.zeros((num_slots,), jnp.int32).at[seg].add(1, mode="drop")
-        )
-        inf = jnp.full((num_slots,), jnp.inf, jnp.float32)
-        zeros = jnp.zeros((num_slots,), jnp.float32)
-        per_value = []
-        for v in values_list:
-            sums = (
-                zeros.at[seg].add(v, mode="drop") if "sum" in need else zeros
-            )
-            mins = inf.at[seg].min(v, mode="drop") if "min" in need else inf
-            maxs = (
-                (-inf).at[seg].max(v, mode="drop") if "max" in need else -inf
-            )
-            per_value.append(ValueAggregates(sums, mins, maxs))
-        per_value = tuple(per_value)
+        counts, per_value = slot_tables(seg, values_list, num_slots, need)
 
     slot_ids = jnp.arange(num_slots, dtype=jnp.int32)
     # Integer key inputs reconstruct exactly in int32 (base + slot is
@@ -504,6 +504,11 @@ def distinct_values(values: jax.Array, mask: jax.Array, capacity: int):
     return g.keys[0], g.num_groups
 
 
+# Slot-table reductions each window aggregate reads.
+WINDOW_NEED = {"sum": ("sum",), "avg": ("sum",), "count": (),
+               "min": ("min",), "max": ("max",)}
+
+
 def dense_window_aggregate(
     part_key: jax.Array,
     values: jax.Array,
@@ -513,49 +518,28 @@ def dense_window_aggregate(
     num_slots: int,
 ) -> jax.Array:
     """``AGG(values) OVER (PARTITION BY key)`` for stats-bounded integer
-    partition keys — the window analogue of :func:`dense_group_aggregate`.
+    partition keys — the window analogue of the dense GROUP BY tier.
 
     The sort-based :func:`window_aggregate` pays a full O(N log² N)
-    comparator sort plus a serialized scatter-back through the inverse
-    permutation (~0.14 G updates/s on v5e).  When stats bound the
-    partition key to a small integral range neither is needed: the
-    per-partition table is a masked (N, G) virtual-matrix reduction
-    (pure VPU streaming, same design point as dense GROUP BY) and the
-    per-row result is a second G-lane sweep broadcasting the table back
-    (≤512 slots) or a small-table gather (beyond).  Rows keep their
-    original order throughout — no inverse permutation exists."""
+    comparator sort plus a scatter-back through the inverse
+    permutation.  When stats bound the partition key to a small
+    integral range neither is needed: the per-partition table comes from
+    :func:`slot_tables` (as in dense GROUP BY) and the per-row result is
+    a small-table gather.  Rows keep their original order throughout —
+    no inverse permutation exists."""
+    need = WINDOW_NEED.get(agg)
+    if need is None:
+        raise ValueError(f"Unknown window aggregate: {agg}")
     gid = part_key.astype(jnp.int32) - jnp.int32(base)
     valid = jnp.logical_and(mask, jnp.logical_and(gid >= 0, gid < num_slots))
-    slot_ids = jnp.arange(num_slots, dtype=jnp.int32)
-    eq = jnp.logical_and(gid[:, None] == slot_ids[None, :], valid[:, None])
-    v2 = values[:, None]
-
-    if agg in ("sum", "avg", "count"):
-        sums = (
-            jnp.sum(jnp.where(eq, v2, 0.0), axis=0)
-            if agg != "count"
-            else None
-        )
-        counts = jnp.sum(eq, axis=0, dtype=jnp.float32)
-        if agg == "sum":
-            table = sums
-        elif agg == "count":
-            table = counts
-        else:
-            table = sums / jnp.maximum(counts, 1.0)
-    elif agg == "min":
-        table = jnp.min(jnp.where(eq, v2, jnp.inf), axis=0)
-    elif agg == "max":
-        table = jnp.max(jnp.where(eq, v2, -jnp.inf), axis=0)
-    else:
-        raise ValueError(f"Unknown window aggregate: {agg}")
-
-    if num_slots <= 512:
-        win = jnp.sum(jnp.where(eq, table[None, :], 0.0), axis=1)
-    else:
-        win = jnp.where(
-            valid, table[jnp.clip(gid, 0, num_slots - 1)], 0.0
-        )
+    seg = jnp.where(valid, gid, num_slots)  # invalid rows drop
+    counts, (va,) = slot_tables(seg, (values,), num_slots, need)
+    counts = counts.astype(jnp.float32)
+    table = {"sum": va.sums, "count": counts, "min": va.mins,
+             "max": va.maxs}.get(agg)
+    if agg == "avg":
+        table = va.sums / jnp.maximum(counts, 1.0)
+    win = table[jnp.clip(gid, 0, num_slots - 1)]
     return jnp.where(valid, win, 0.0)
 
 
@@ -706,9 +690,8 @@ def segmented_inclusive_scan(v: jax.Array, first: jax.Array, op, identity):
     """True segmented inclusive scan via Hillis–Steele doubling.
 
     ``lax.associative_scan`` unrolls a Python-built slice tree whose XLA
-    TPU compile time grows super-linearly with n (measured: a
-    2^24-element scan pushed a program past 10 minutes of compilation),
-    and there is no segmented-scan primitive.  Explicit doubling sticks
+    compile time grows super-linearly with n, and there is no
+    segmented-scan primitive.  Explicit doubling sticks
     to concatenate/where/``op`` — log2(n) O(n) passes that compile
     instantly and stream at HBM speed: element i combines with element
     i−s iff both lie in the same segment (distance into the segment
@@ -1227,7 +1210,7 @@ def window_frame(
     UNBOUNDED on that side).  The reference never parses past OVER
     (expression.cpp:296-329).
 
-    TPU shape: one stable sort by (partition…, order), then the frame
+    Shape: one stable sort by (partition…, order), then the frame
     decomposes into [i−prec, i] ∪ (i, i+foll]:
 
     * the PRECEDING half is a trailing window in sorted order — a
@@ -1341,10 +1324,10 @@ def window_range_frame(
     order key — are always inside).  The reference never parses past
     OVER (expression.cpp:296-329).
 
-    TPU shape: the frame ends are RANKS of per-row value bounds in the
+    Shape: the frame ends are RANKS of per-row value bounds in the
     partition-sorted order-key sequence, computed with ONE merged 3n
     sort (data ∪ lo-bounds ∪ hi-bounds) — the join's merged-rank
-    pattern (ops/join.py:114-152; ``searchsorted`` is banned on TPU).
+    pattern (ops/join.py:114-152; no ``searchsorted``).
     A lo bound ties BEFORE equal data keys and a hi bound AFTER, so the
     exclusive running reduction at each bound's merged position is
     exactly the frame-boundary prefix:

@@ -9,7 +9,7 @@ max — exactly the mergeable-partial shape the engine's streaming and
 distributed tiers are built around (see CLAUDE.md architecture
 invariants: the partial form is the merge unit).
 
-TPU mapping:
+Device mapping:
 
 * values hash through their ``float_sort_key`` image, so the distinct
   semantics match the exact kernels bit-for-bit (-0.0 ≡ +0.0, every
@@ -18,7 +18,7 @@ TPU mapping:
 * the register update is ONE scatter-max of ``seg·m + bucket`` — the
   same per-update-bounded scatter the midrange GROUP BY rides;
 * the estimator (harmonic mean + linear-counting correction) is pure
-  VPU elementwise work over the (G, m) register table, vectorized
+  elementwise work over the (G, m) register table, vectorized
   across groups.
 
 Standard error ≈ 1.04/√m → ~1.6% at the default m=4096.  The reference

@@ -2,7 +2,7 @@
 
 The reference *parses* multi-join syntax (expression.cpp:375-401) but
 never executes a join ("loads the same table for demonstration",
-warpdb.hpp:22-23).  This operator makes JOIN real, TPU-style.
+warpdb.hpp:22-23).  This operator makes JOIN real, with static shapes.
 
 Design — sort-merge join with a two-phase static-shape protocol
 (SURVEY.md §7 "hard parts": dynamic result shapes on XLA):
@@ -10,8 +10,7 @@ Design — sort-merge join with a two-phase static-shape protocol
 * phase 1 (``join_match_counts``): sort the build side once; each probe
   key's duplicate range [lo, hi) comes from two merged probe∪build
   sorts with tie-break flags (binary search per needle is NOT used —
-  XLA lowers searchsorted to a log(n) loop of serial-ish gathers,
-  measured ~100x slower than comparator sorts on TPU at 2^24 rows);
+  XLA lowers searchsorted to a log(n) loop of serial-ish gathers);
 * the host picks an output capacity bucket (next power of two ≥ total —
   so at most log₂ distinct compilations);
 * phase 2 (``join_gather_indices``): each output slot r finds its probe
@@ -113,8 +112,8 @@ def join_match_counts(
 
     # lo/hi bounds via ONE merged sort rather than searchsorted: XLA
     # lowers searchsorted to a log(n)-iteration loop of 1-per-needle
-    # gathers, measured ~10s for 2^24 needles on TPU; comparator sorts
-    # and scans are the constructs the whole engine is built on.
+    # gathers; comparator sorts and scans are the constructs the whole
+    # engine is built on.
     #
     # Merge probe ∪ build sorted by (key, probe-after-build tie flag):
     # at a probe position the inclusive build count is its 'right' bound
@@ -142,9 +141,8 @@ def join_match_counts(
     lo_at_start = jnp.where(seg_first, builds_seen - is_build_s, 0)
     lo_pos = lax.cummax(lo_at_start)
 
-    # Un-merge: probes first (ordered by original index), builds last.
-    # (A scatter-based un-merge measured ~15% slower on v5e than this
-    # sort — two 2^24 int scatter-max passes lose to one 3-operand sort.)
+    # Un-merge: probes first (ordered by original index), builds last,
+    # with one 3-operand sort instead of two int scatter-max passes.
     _, hi_u, lo_u = lax.sort(
         (is_build_s * (n_probe + n_build) + i_s, hi_pos, lo_pos),
         num_keys=1,
@@ -171,7 +169,7 @@ def join_match_counts_dense(
 
     The general :func:`join_match_counts` pays two full-width probe∪build
     sorts; for a dimension-table join (the star-schema common case) that
-    is ~1000× more comparator work than these two K-lane VPU sweeps.
+    is ~1000× more comparator work than these two K-lane sweeps.
     Comparisons happen in ``float_sort_key`` u32 space, so key-matching
     semantics (including the canonical-NaN-matches-NaN behavior) are
     bit-identical to the sort-merge path.  Caller guarantees
@@ -199,39 +197,14 @@ def join_match_counts_dense(
     return JoinPhase1(order_s, bkey_s, lt, counts, total)
 
 
-def dense_select_sweep(cols, slot, valid, k_cap: int):
-    """Per-row values from a TINY (≤ ``k_cap`` rows) source via a
-    virtual (n, K) compare-select sweep — the dense GROUP BY trick
-    applied to build-side column resolution.  Per-row gathers cost
-    ~0.18 s per 2^25 random rows on v5e while K ≤ 256 VPU passes cost
-    single-digit ms.
-
-    ``cols`` must already be permuted into the order ``slot`` indexes
-    (callers pass ``col[build_order]``).  Exactly one slot matches per
-    valid row, so the masked u32 sum selects that slot's bits exactly
-    — bit-exact for any 32-bit dtype.  Invalid rows read zeros."""
-    j = jnp.arange(k_cap, dtype=jnp.int32)
-    eq = slot[:, None] == j[None, :]
-    out = []
-    for c in cols:
-        bits = lax.bitcast_convert_type(c[:k_cap], jnp.uint32)
-        t = jnp.sum(jnp.where(eq, bits[None, :], jnp.uint32(0)), axis=1)
-        t = jnp.where(valid, t, jnp.uint32(0))
-        out.append(lax.bitcast_convert_type(t, c.dtype))
-    return tuple(out)
-
-
 def stacked_take(cols, idx, valid):
     """Gather the same ``idx`` from C equally-sized columns in ONE take.
 
-    TPU gather cost is per-row dominated, so C columns stacked as (C, n)
-    cost about one column's separate gather.  The index is reshaped to a
-    2-D block so the gather output's minor dim stays 128-wide — a flat
-    index emits a [len(idx), C] intermediate whose tiny minor dim
-    tile-pads to 128 (64x HBM blowup at 2^25).  Falls back to separate
-    1-D gathers when the index length isn't lane-divisible or the source
-    is tiny (small operands re-materialise the padded form regardless,
-    and small-source 1-D gathers are ~2x faster per column anyway).
+    C columns stacked as (C, n) share one index stream.  The index is
+    reshaped to a 2-D block so the gather output keeps the row axis
+    minor instead of a [len(idx), C] intermediate with a tiny minor dim.
+    Falls back to separate 1-D gathers when the index length isn't a
+    1024-multiple or the source is tiny.
     Invalid output slots are zeroed."""
     cols = tuple(cols)
     n_idx = idx.shape[0]
@@ -261,9 +234,7 @@ def join_gather_indices(
     With ``return_slot=True`` the second element is the *sorted-build
     slot* instead of the original build index: callers that pre-permute
     their build columns by ``phase1.build_order`` (an n_build-sized
-    shuffle, cheap) skip one capacity-sized random gather — gathers are
-    the dominant cost of the expansion on TPU (~0.5 s per 2^25 output
-    at 4 B/row vs ~0.45 s for an entire stacked multi-column take).
+    shuffle, cheap) skip one capacity-sized random gather.
 
     LEFT OUTER expansion: the caller rewrites ``phase1.counts`` to the
     EMISSION counts (``max(matches, 1)`` per valid probe row) and passes
@@ -285,9 +256,8 @@ def join_gather_indices(
     r = jnp.arange(capacity, dtype=jnp.int32)
     # Probe row owning output slot r: scatter each matching row's id at
     # its start offset, then a running max fills the gaps (offsets are
-    # nondecreasing in row id).  Replaces searchsorted, whose TPU
-    # lowering loops log(n) gathers per slot (~10s at 2^24 slots; this
-    # is one scatter + one scan, ~100ms).
+    # nondecreasing in row id).  Replaces searchsorted, whose lowering
+    # loops log(n) gathers per slot; this is one scatter + one scan.
     n_probe = counts.shape[0]
     row_ids = jnp.arange(n_probe, dtype=jnp.int32)
     starts = jnp.where(counts > 0, offsets, capacity)  # non-matching → drop
@@ -328,11 +298,8 @@ def join_gather_indices(
             rows.append(matched_counts)
         if capacity % 1024 == 0:
             # One stacked 2-D take for all per-probe lookups (offsets,
-            # lo, [matched counts]): TPU gather cost is per-row
-            # dominated, so sharing the index amortises it; the 2-D
-            # index block keeps the output minor dim 128-wide (a flat
-            # index emits a [capacity, C] intermediate that tile-pads
-            # 64x).
+            # lo, [matched counts]) sharing one index stream; the 2-D
+            # index block keeps the row axis minor.
             m = jnp.stack(rows, axis=0)
             t = jnp.take(m, probe_idx.reshape(-1, 1024), axis=1)
             t = t.reshape(len(rows), capacity)

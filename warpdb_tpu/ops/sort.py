@@ -2,8 +2,7 @@
 
 Replaces the reference's single-GPU-thread O(n²) bubble sorts
 (jit.cpp:248-307: ``jit_sort_pairs`` / ``jit_sort_float``) with XLA's
-O(n log n) vectorized sort and ``lax.top_k`` for LIMIT-k pulls — both
-map onto the TPU VPU with lane-parallel comparators.
+O(n log n) vectorized sort and ``lax.top_k`` for LIMIT-k pulls.
 
 All functions take padded arrays plus a validity mask; invalid (padding
 or filtered-out) rows are forced to an "infinity" sentinel so they sort
@@ -101,8 +100,8 @@ def top_k_values(values: jax.Array, mask: jax.Array, k: int, ascending: bool):
 
     Two-stage hierarchical pull for large inputs: a lane-parallel
     ``top_k`` over row blocks shrinks N to blocks·k candidates, then one
-    small ``top_k`` finishes — O(N log k) work with far better VPU
-    utilisation than a single monolithic pass."""
+    small ``top_k`` finishes — O(N log k) work, parallel across row
+    blocks, instead of a single monolithic pass."""
     v = _sentineled(values, mask, ascending)
     # Work in descending-priority space: u's k largest are the answer.
     u = -v if ascending else v
@@ -110,27 +109,9 @@ def top_k_values(values: jax.Array, mask: jax.Array, k: int, ascending: bool):
     # NaN (finite stats interval); value-space top-k cannot represent
     # the sort paths' NaN total order.
     n = u.shape[0]
-    # Stage 1: candidate selection.
-    #
-    # On TPU, the streaming Pallas kernel (ops/pallas_topk.py) makes one
-    # HBM-bound pass keeping a per-lane top-k in VMEM — measured 10.6x
-    # over the XLA two-stage pull at N=2^25, k=16 on v5e (0.41 ms,
-    # ~82 Grows/s).  Falls back to blocked lax.top_k off-TPU or for
-    # shapes the kernel doesn't cover (block size tuned on v5e: XLA's
-    # TopK cost is per-row-overhead dominated, so few wide rows win).
-    staged = False
-    if n >= (1 << 20) and 1 < k <= 128:
-        import jax
-
-        if jax.default_backend() == "tpu":
-            from .pallas_topk import LANES, pallas_topk_candidates
-
-            for tile_rows in (256, 128, 64, 32, 16, 8):
-                if n % (tile_rows * LANES) == 0:
-                    u = pallas_topk_candidates(u, k, tile_rows).reshape(-1)
-                    staged = True
-                    break
-    if not staged and n >= (1 << 16) and k <= 1024:
+    # Stage 1: per-block candidates from a blocked top_k (few wide rows:
+    # the block size is untuned on the current device).
+    if n >= (1 << 16) and k <= 1024:
         block = 1 << max(13, min(18, (n // 128).bit_length() - 1))
         while block < 8 * k:
             block *= 2

@@ -119,9 +119,8 @@ def _run_dist_join(
     With ``repack=False`` returns ``(cols_s, counts_s, n_dev)`` host
     arrays with per-device row blocks.  With ``repack=True`` the joined
     rows are re-packed ON DEVICE into a globally-contiguous row prefix
-    via ``lax.ragged_all_to_all`` (each shard's variable-count output
-    streams to its final global position over ICI — O(result) traffic,
-    no host round-trip) and the return is
+    by an all_to_all (each shard's variable-count output moves to its
+    final global position — no host round-trip) and the return is
     ``(packed_cols, total, col_stats, out_cap, n_dev)`` where
     ``packed_cols`` are global row-sharded device arrays."""
     if mesh is None:
@@ -155,8 +154,6 @@ def _run_dist_join(
         def build():
             from jax import shard_map
             from jax.sharding import PartitionSpec as P
-
-            use_ragged = jax.default_backend() == "tpu"
 
             def body(lcols, rcols, rkey_override, n_left, n_right):
                 n_l = next(iter(lcols.values())).shape[0]
@@ -248,62 +245,45 @@ def _run_dist_join(
                     )
 
                 # Device-resident repack: each shard's [0, count) output
-                # rows stream to their final global positions.  A row at
-                # local slot r has global position o_d + r; its target
-                # shard's range [e·L, (e+1)·L) overlaps my range in one
-                # contiguous chunk, so one ragged_all_to_all per column
-                # moves exactly the matched rows — the packed result IS
-                # a contiguous global row prefix (the DeviceTable
-                # contract) without leaving HBM.
+                # rows move to their final global positions (row at local
+                # slot r → global o_d + r), so the packed result IS a
+                # contiguous global row prefix (the DeviceTable contract)
+                # without leaving the devices.  One dense bucketized
+                # all_to_all per column: positions are globally unique,
+                # so summing the received buckets rebuilds the rows
+                # exactly (n_dev× the O(result) traffic; ragged_all_to_all
+                # would move only the rows, but XLA:CPU cannot run it).
+                # Floats move as their bits: a float sum with +0.0 would
+                # turn a -0.0 payload into +0.0.
                 counts_all = lax.all_gather(count, DATA_AXIS)
                 offs = jnp.cumsum(counts_all) - counts_all
                 me = lax.axis_index(DATA_AXIS).astype(jnp.int32)
                 o_d = offs[me]
-                if use_ragged:
-                    e = jnp.arange(n_dev, dtype=jnp.int32)
-                    g0 = jnp.maximum(o_d, e * out_cap)
-                    gend = jnp.minimum(o_d + count, (e + 1) * out_cap)
-                    in_off = jnp.clip(g0 - o_d, 0, out_cap)
-                    out_off = jnp.clip(g0 - e * out_cap, 0, out_cap)
-                    sizes = jnp.clip(gend - g0, 0, out_cap)
-                    gs0 = jnp.maximum(offs, me * out_cap)
-                    gse = jnp.minimum(offs + counts_all, (me + 1) * out_cap)
-                    recv = jnp.clip(gse - gs0, 0, out_cap)
-                    packed = tuple(
-                        lax.ragged_all_to_all(
-                            c, jnp.zeros((out_cap,), c.dtype),
-                            in_off, sizes, out_off, recv,
-                            axis_name=DATA_AXIS,
-                        )
-                        for c in out_cols
+                r = jnp.arange(out_cap, dtype=jnp.int32)
+                gpos = o_d + r
+                dest = jnp.where(
+                    r < count,
+                    jnp.clip(gpos // out_cap, 0, n_dev - 1),
+                    n_dev,
+                )
+                slot = gpos % out_cap
+                packed = []
+                for c in out_cols:
+                    bits = c
+                    if jnp.issubdtype(c.dtype, jnp.floating):
+                        bits = lax.bitcast_convert_type(
+                            c, jnp.dtype(f"uint{8 * c.dtype.itemsize}"))
+                    send = (
+                        jnp.zeros((n_dev + 1, out_cap), bits.dtype)
+                        .at[dest, slot]
+                        .set(bits, mode="drop")
+                    )[:n_dev]
+                    rcv = lax.all_to_all(
+                        send, DATA_AXIS, 0, 0, tiled=False
                     )
-                else:
-                    # XLA:CPU has no ragged-all-to-all thunk: emulate
-                    # with a dense bucketized exchange (positions are
-                    # globally unique, so summing the received buckets
-                    # reconstructs the packed rows exactly).  n_dev×
-                    # traffic blowup — correctness path for the virtual
-                    # CPU mesh only.
-                    r = jnp.arange(out_cap, dtype=jnp.int32)
-                    gpos = o_d + r
-                    dest = jnp.where(
-                        r < count,
-                        jnp.clip(gpos // out_cap, 0, n_dev - 1),
-                        n_dev,
-                    )
-                    slot = gpos % out_cap
-                    packed = []
-                    for c in out_cols:
-                        send = (
-                            jnp.zeros((n_dev + 1, out_cap), c.dtype)
-                            .at[dest, slot]
-                            .set(c, mode="drop")
-                        )[:n_dev]
-                        rcv = lax.all_to_all(
-                            send, DATA_AXIS, 0, 0, tiled=False
-                        )
-                        packed.append(jnp.sum(rcv, axis=0))
-                    packed = tuple(packed)
+                    packed.append(lax.bitcast_convert_type(
+                        jnp.sum(rcv, axis=0, dtype=bits.dtype), c.dtype))
+                packed = tuple(packed)
                 total = jnp.sum(counts_all)
                 # Per-column min/max/has-NaN so stats-gated fast paths
                 # (dense GROUP BY, top-k) stay live on the joined table.
@@ -451,10 +431,10 @@ def distributed_join_table(
 
     Output rows arrive in hash-partition order (documented deviation:
     parallel hash joins are unordered; ORDER BY downstream restores any
-    required order).  The joined rows stay ON DEVICE: a
-    ``ragged_all_to_all`` repack streams each shard's variable-count
-    output to its final global position over ICI, so the result table
-    is a contiguous row-sharded prefix with no host round-trip.
+    required order).  The joined rows stay ON DEVICE: an all_to_all
+    repack moves each shard's variable-count output to its final global
+    position, so the result table is a contiguous row-sharded prefix
+    with no host round-trip.
     """
     import jax.numpy as jnp
 

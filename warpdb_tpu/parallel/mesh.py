@@ -1,10 +1,12 @@
 """Device mesh helpers.
 
 The reference's only parallelism was a sequential ``cudaSetDevice`` loop
-over contiguous row ranges (multi_gpu_utils.cpp:27-60).  The TPU-native
+over contiguous row ranges (multi_gpu_utils.cpp:27-60).  The JAX
 equivalent is a ``jax.sharding.Mesh``: tables are row-sharded across a
 1-D ``"data"`` axis (contiguous ranges, like the reference split), XLA
-inserts the collectives, and the ICI fabric carries them.
+inserts the collectives, and the device interconnect carries them (all
+to all between the cards of a host, so the mesh follows the algorithm,
+not a topology).
 """
 
 from __future__ import annotations

@@ -1,8 +1,8 @@
 """Multi-host execution: process group, global mesh, per-host ingest.
 
 The reference never crossed a process boundary (SURVEY.md §3.4: single
-process, sequential ``cudaSetDevice``).  TPU pods are multi-host by
-construction, so this module provides the standard JAX recipe:
+process, sequential ``cudaSetDevice``).  A cluster spans several hosts,
+so this module provides the standard JAX recipe:
 
 * ``initialize(coordinator, num_processes, process_id)`` — wraps
   ``jax.distributed.initialize``; no-op when single-process;

@@ -167,9 +167,9 @@ def run_topk_sharded(
     ascending: bool,
     mesh=None,
 ) -> np.ndarray:
-    """Distributed ORDER BY … LIMIT k: each shard pulls its local top-k
-    (the streaming Pallas kernel on TPU), an ``all_gather`` ships only
-    k·n_dev candidates over ICI, and one tiny final top-k finishes —
+    """Distributed ORDER BY … LIMIT k: each shard pulls its local top-k,
+    an ``all_gather`` ships only k·n_dev candidates, and one tiny final
+    top-k finishes —
     the classic two-level pull, never materialising a global sort."""
     from jax import shard_map
     from jax.sharding import PartitionSpec as P
@@ -245,7 +245,7 @@ def run_grouped_sharded(
 
     The local phase is the same one-sort aggregate as single-chip; the
     merge re-aggregates the G·n_dev partials — the classic two-level
-    tree, with the cross-shard exchange riding ICI via ``all_gather``
+    tree, with the cross-shard exchange as one ``all_gather``
     (SURVEY.md §5 "distributed communication backend").
     """
     from jax import shard_map

@@ -2,11 +2,12 @@
 
 The scalable alternative to the all_gather partial-merge in
 ``sharded.py``: when the number of distinct keys is large, gathering
-G·n_dev partials to every device wastes ICI bandwidth and VMEM.  The
+G·n_dev partials to every device wastes interconnect bandwidth and
+device memory.  The
 classic database answer — re-shard *rows* by key hash so each device
 owns a disjoint key range, then aggregate locally — maps directly onto
 ``jax.lax.all_to_all`` over the mesh (SURVEY.md §5 "distributed
-communication backend": collectives over ICI, not host staging).
+communication backend": device collectives, not host staging).
 
 Per shard, inside ``shard_map``:
 
@@ -14,7 +15,7 @@ Per shard, inside ``shard_map``:
 2. one stable sort by destination groups outgoing rows; a static
    (n_dev, cap) gather builds equal-sized send buckets (fixed shapes —
    the XLA contract), with per-bucket send counts;
-3. ``all_to_all`` exchanges bucket d with device d — a single fused ICI
+3. ``all_to_all`` exchanges bucket d with device d — a single fused
    exchange instead of n_dev point-to-point copies;
 4. each device segment-aggregates the rows it now owns (every
    occurrence of a key lands on exactly one device).
@@ -27,7 +28,7 @@ static-shape protocol.
 the per-shard distinct-key count fits a local capacity, each shard first
 pre-aggregates (map-side combine) and shuffles *partials* instead of
 rows.  A hot key then contributes at most ONE partial row per shard, so
-pathological single-key skew cannot overflow a bucket, and ICI traffic
+pathological single-key skew cannot overflow a bucket, and exchange traffic
 is bounded by capacity·n_dev regardless of row distribution.  The
 executor tries this first and falls back to the row shuffle when local
 pre-aggregation overflows (very high cardinality — exactly the regime
@@ -122,7 +123,7 @@ def _shuffle_kernel(key_fns, val_fns, cond_fn, n_dev, send_cap, group_cap,
     ``all_to_all``s and aggregates the first half's rows while the
     second is still in flight — the two collectives have no data
     dependence on the first aggregation, so XLA's async collective
-    scheduling (start/done pairs) can hide half the ICI time behind VPU
+    scheduling (start/done pairs) can hide half the exchange time behind
     compute.  The halves produce two partial group tables merged by one
     payload re-aggregation (counts ride the 4096-radix hi/lo lanes so
     merged counts stay exact)."""
@@ -170,7 +171,7 @@ def _shuffle_kernel(key_fns, val_fns, cond_fn, n_dev, send_cap, group_cap,
         send_vals = [jnp.where(send_valid, v[row_idx], 0.0) for v in vals]
         overflow = jnp.max(counts) > send_cap
 
-        # 3. the ICI exchange: bucket d → device d.
+        # 3. the exchange: bucket d → device d.
         def exchange(sl):
             rk = [
                 lax.all_to_all(k[:, sl], DATA_AXIS, 0, 0, tiled=False)
@@ -329,7 +330,7 @@ def _combine_shuffle_kernel(key_fns, val_fns, cond_fn, n_dev, local_cap,
         ]
         send_payload = [jnp.where(send_valid, p[row_idx], 0.0) for p in payload]
 
-        # 3. ICI exchange.
+        # 3. exchange.
         recv_keys = [
             lax.all_to_all(k, DATA_AXIS, 0, 0, tiled=False) for k in send_keys
         ]

@@ -601,7 +601,8 @@ def _stream_perrow(
 
     ORDER BY without LIMIT is rejected: it needs an external sort of
     the whole stream — O(N) host state AND O(N) transfer, which the
-    relay contract (transfers are O(result)) deliberately refuses.
+    engine's transfer contract (host↔device transfers are O(result))
+    deliberately refuses.
     """
     import copy as _copy
 

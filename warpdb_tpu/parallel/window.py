@@ -2,12 +2,12 @@
 
 The partition-aggregate family — ``AGG(e) OVER (PARTITION BY k)`` for
 SUM/AVG/COUNT/MIN/MAX with a stats-bounded integral partition key —
-distributes with near-zero ICI cost: each shard builds its LOCAL dense
+distributes with near-zero interconnect cost: each shard builds its LOCAL dense
 per-partition slot table, the tables merge with one ``psum`` /
 ``pmin`` / ``pmax`` over the data axis (num_slots scalars per
 collective, not rows), and the merged table broadcasts back per-row
 with a small-table gather.  No row ever crosses the interconnect —
-the TPU-native answer to "hash-shuffle rows by partition key": for
+the collective answer to "hash-shuffle rows by partition key": for
 associative window aggregates the shuffle is unnecessary, only the
 O(G) partial tables move (SURVEY §5 row 7; the reference stubbed
 windows entirely, expression.hpp:112-121).
@@ -36,6 +36,7 @@ from ..engine.compiler import (
     schema_signature,
 )
 from ..engine import udf as udf_mod
+from ..ops.aggregate import WINDOW_NEED, slot_tables
 from .mesh import DATA_AXIS
 from .sharded import _ensure_sharded, fetch_global
 
@@ -58,6 +59,7 @@ def run_window_partition_agg_sharded(
     table = _ensure_sharded(table, mesh)
     n_dev = int(mesh.devices.size)
     agg = select.agg.value
+    need = WINDOW_NEED[agg]
     cols = table.columns
     n_local = table.padded_rows // n_dev
 
@@ -89,38 +91,20 @@ def run_window_partition_agg_sharded(
             ok = jnp.logical_and(valid, in_range)
             seg = jnp.where(ok, gid, num_slots)
 
-            # Local per-partition slot tables (scatter engine: the
-            # table is tiny, the rows stream once from HBM).
-            if agg in ("sum", "avg"):
-                sums = jnp.zeros((num_slots + 1,), jnp.float32).at[
-                    seg
-                ].add(vals, mode="drop")
-                sums = lax.psum(sums[:num_slots], DATA_AXIS)
-            else:
-                sums = None
-            if agg in ("count", "avg"):
-                cnts = jnp.zeros((num_slots + 1,), jnp.float32).at[
-                    seg
-                ].add(1.0, mode="drop")
-                cnts = lax.psum(cnts[:num_slots], DATA_AXIS)
-            else:
-                cnts = None
+            # Local per-partition slot tables (the rows stream once;
+            # ops/aggregate.slot_tables), merged across the mesh.
+            cnts, (va,) = slot_tables(seg, (vals,), num_slots, need)
             if agg == "min":
-                mins = jnp.full(
-                    (num_slots + 1,), jnp.inf, jnp.float32
-                ).at[seg].min(vals, mode="drop")
-                tablev = lax.pmin(mins[:num_slots], DATA_AXIS)
+                tablev = lax.pmin(va.mins, DATA_AXIS)
             elif agg == "max":
-                maxs = jnp.full(
-                    (num_slots + 1,), -jnp.inf, jnp.float32
-                ).at[seg].max(vals, mode="drop")
-                tablev = lax.pmax(maxs[:num_slots], DATA_AXIS)
+                tablev = lax.pmax(va.maxs, DATA_AXIS)
             elif agg == "sum":
-                tablev = sums
+                tablev = lax.psum(va.sums, DATA_AXIS)
             elif agg == "count":
-                tablev = cnts
+                tablev = lax.psum(cnts.astype(jnp.float32), DATA_AXIS)
             else:  # avg
-                tablev = sums / jnp.maximum(cnts, 1.0)
+                tablev = lax.psum(va.sums, DATA_AXIS) / jnp.maximum(
+                    lax.psum(cnts.astype(jnp.float32), DATA_AXIS), 1.0)
 
             # Per-row broadcast back: small-table gather (per-column
             # 1-D — the ≤4K-source rule, docs/DESIGN.md §2).

@@ -2,7 +2,7 @@
 
 ``python -m warpdb_tpu --serve 8080 data.csv`` exposes the engine over
 plain HTTP/JSON — no dependencies beyond the standard library, so the
-single TPU process can back dashboards, notebooks, or sidecar services.
+single engine process can back dashboards, notebooks, or sidecar services.
 Extension: the reference has no serving surface at all (its CLI is the
 only entry point, main.cu:120-128).
 

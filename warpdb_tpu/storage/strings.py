@@ -2,7 +2,7 @@
 
 The reference declares ``DataType::String`` but leaves string columns off
 the device entirely (``device_ptr = nullptr``, csv_loader.cpp:151-155), so
-no query can touch them.  The TPU engine exceeds that: every string column
+no query can touch them.  This engine exceeds that: every string column
 is dictionary-encoded at upload into
 
 * a **sorted** host-side vocabulary (``np.ndarray`` of str), and

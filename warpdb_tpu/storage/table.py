@@ -34,8 +34,9 @@ __all__ = [
     "PAD_MULTIPLE",
 ]
 
-# One float32 VPU tile is (8, 128); padding 1-D columns to a multiple of
-# 1024 keeps every reshape/tile XLA attempts aligned.
+# Padding 1-D columns to a multiple of 1024 keeps every reshape/tile
+# XLA attempts aligned (the 2-D gather index blocks are 1024 wide);
+# the value is untuned on the current device (ROADMAP Design 4).
 PAD_MULTIPLE = 1024
 
 
